@@ -21,8 +21,8 @@ GETOPT_SPEC = (
 _FAST_EXIT_OK = True  # cleared by multihost runs (see cli.py)
 
 VERSION_MESSAGE = (
-    "nthll-TPU 1.0.0 (capability parity with nthll 1.2.2)\n"
-    "A TPU-native HyperLogLog distinct k-mer estimator.\n"
+    "nthll (JAX) 1.0.0 (capability parity with nthll 1.2.2)\n"
+    "A JAX HyperLogLog distinct k-mer estimator for NVIDIA GPUs.\n"
 )
 
 USAGE_MESSAGE = f"""Usage: {PROGRAM} [OPTION]... FILE(S)...
@@ -116,8 +116,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         sys.stderr.write(f"Try `{PROGRAM} --help' for more information.\n")
         return 1
 
-    # Engine selection (mirrors cli._use_host_engine's cost model): on
-    # accelerator platforms, jobs whose estimated host wall beats the
+    # Engine selection (cli._use_host_engine's cost model, same constants):
+    # when the run targets a GPU, jobs whose estimated host wall beats the
     # device fixed-cost floor route to the native host engine — for nthll
     # the device compute (a 64 KB register max-merge) is so cheap that
     # transfer + startup dominate far longer than for ntcard. Setting
@@ -125,38 +125,29 @@ def main(argv: Optional[List[str]] = None) -> int:
     # authority instead (e.g. =0 forces the device engine).
     import os as _os
 
+    from ntcard_tpu.accel import accelerator_requested
+
     eng = _os.environ.get("NTCARD_ENGINE", "auto")
     use_host = eng == "host"
-    if eng == "auto" and not _os.environ.get("NTCARD_COORDINATOR"):
-        plat = _os.environ.get("JAX_PLATFORMS", "").split(",")[0].strip().lower()
-        if plat not in ("", "cpu"):
-            from ntcard_tpu.io.decompress import input_size as _isize
-            from ntcard_tpu.io.readers import expand_file_args as _expand
-            from ntcard_tpu.models.host_engine import host_engine_available
+    if eng == "auto" and not _os.environ.get("NTCARD_COORDINATOR") and accelerator_requested():
+        from ntcard_tpu.cli import device_floor_sec, host_rate_bps
+        from ntcard_tpu.io.decompress import input_size as _isize
+        from ntcard_tpu.io.readers import expand_file_args as _expand
+        from ntcard_tpu.models.host_engine import host_engine_available
 
-            total = sum(_isize(f) for f in _expand(args))
-            thresh_env = _os.environ.get("NTCARD_HLL_HOST_MAX_BYTES")
-            if thresh_env is not None:
-                # explicit byte threshold: sole authority (lets tests and
-                # deployments force the device engine at any size)
-                use_host = total < int(thresh_env)
-            else:
-                # cli._use_host_engine's cost model: host unless the
-                # estimated host-only wall exceeds the device fixed floor —
-                # inside the warm-pool daemon (NTCARD_IN_DAEMON, daemon.py)
-                # the startup chain is already paid, so the floor drops to
-                # the measured warm cost, same as ntcard's
-                host_rate = float(_os.environ.get("NTCARD_HOST_RATE_BPS", 0.8e9))
-                floor_default = 0.25 if _os.environ.get("NTCARD_IN_DAEMON") else 4.0
-                floor = float(
-                    _os.environ.get("NTCARD_DEVICE_FLOOR_SEC", floor_default)
-                )
-                use_host = total / host_rate < floor
-            use_host = use_host and host_engine_available()
+        total = sum(_isize(f) for f in _expand(args))
+        thresh_env = _os.environ.get("NTCARD_HLL_HOST_MAX_BYTES")
+        if thresh_env is not None:
+            # explicit byte threshold: sole authority (lets tests and
+            # deployments force the device engine at any size)
+            use_host = total < int(thresh_env)
+        else:
+            use_host = total / host_rate_bps() < device_floor_sec()
+        use_host = use_host and host_engine_available()
     if use_host:
         return _main_host(args, km_len, n_bits, n_thrd)
 
-    from ntcard_tpu import _jax_config  # noqa: F401
+    from ntcard_tpu._jax_config import check_backend
     import jax
 
     from ntcard_tpu.io.decompress import input_size
@@ -174,12 +165,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         device_prefetch,
         parallel_batches_from_files,
     )
+    from ntcard_tpu.utils.metrics import Metrics
 
     # multi-host (env-driven: NTCARD_COORDINATOR / NTCARD_NUM_PROCESSES /
-    # NTCARD_PROCESS_ID): per-host file slice, registers max-merged over DCN
+    # NTCARD_PROCESS_ID): per-host file slice, registers max-merged across hosts
     # — nthll's thread-private-sketch pattern (nthll.cpp:218-245) lifted
     # across hosts.
     proc_id, n_procs = initialize_distributed()
+    check_backend()
     if n_procs > 1:
         global _FAST_EXIT_OK
         _FAST_EXIT_OK = False
@@ -280,23 +273,29 @@ def main(argv: Optional[List[str]] = None) -> int:
             in_files, chunk_len, batch_rows, km_len, n_thrd,
             lenient=True, on_error="skip", wire_packed=wire_fmt,
         )
-    for batch in device_prefetch(batches):
-        if sharded:
-            sketch.update_shards(
-                batch, packed=wire_mode_of(batch[0], rows_ps, halo)
-            )
-        else:
-            sketch.update(
-                batch, packed=wire_mode_of(batch, batch_rows, halo) if use_quad else True
-            )
-    regs = merged_hll_registers(sketch) if n_procs > 1 else sketch.registers()
-    if host_sketch is not None:
-        import numpy as _np
+    # structured metrics (NTCARD_METRICS=1; nthll has no --metrics flag):
+    # phase split and peak device memory on stderr, as ntcard's --metrics
+    metrics = Metrics()
+    with metrics.phase("pipeline"):
+        for batch in device_prefetch(batches):
+            if sharded:
+                sketch.update_shards(
+                    batch, packed=wire_mode_of(batch[0], rows_ps, halo)
+                )
+            else:
+                sketch.update(
+                    batch, packed=wire_mode_of(batch, batch_rows, halo) if use_quad else True
+                )
+    with metrics.phase("finalize"):
+        regs = merged_hll_registers(sketch) if n_procs > 1 else sketch.registers()
+        if host_sketch is not None:
+            import numpy as _np
 
-        regs = _np.maximum(regs, host_sketch.registers())
+            regs = _np.maximum(regs, host_sketch.registers())
     if proc_id == 0:
         f0 = estimate_f0(regs, canon=True)
         sys.stdout.write(f"F0, Exp# of distnt kmers(k={km_len}): {f0}\n")
+    metrics.report()
     return 0
 
 

@@ -18,7 +18,7 @@ rotation tables (A33r/A31l/... and msTab33r/msTab31l); we derive the same values
 programmatically from the seeds, which both avoids copying the tables and
 documents what they actually are: ``rot_seed(b, n) == srol^n(seed(b))``.
 
-Base coding used throughout the TPU framework: 0=A, 1=C, 2=G, 3=T(=U), 4=N/other.
+Base coding used throughout the framework: 0=A, 1=C, 2=G, 3=T(=U), 4=N/other.
 """
 
 from __future__ import annotations

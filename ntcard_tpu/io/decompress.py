@@ -70,30 +70,36 @@ class _PipeStream(io.RawIOBase):
             cmd, stdout=subprocess.PIPE, stdin=subprocess.DEVNULL
         )
         self._cmd = cmd
+        self._eof = False
 
     def readable(self):
         return True
 
     def readinto(self, b):
-        return self._proc.stdout.readinto(b)
+        n = self._proc.stdout.readinto(b)
+        if not n:
+            self._eof = True
+        return n
 
     def close(self):
         if self.closed:
             return
         try:
-            # Drain-free close: if the consumer stopped early, kill the child
-            # rather than deadlock on a full pipe.
-            if self._proc.poll() is None:
-                self._proc.stdout.close()
-                self._proc.kill()
-                self._proc.wait()
-            else:
-                self._proc.stdout.close()
+            self._proc.stdout.close()
+            if self._eof or self._proc.poll() is not None:
+                # the child closed its output, so it is exiting (it may not
+                # have exited yet when the reader sees EOF): reap it and
+                # fail fast on a non-zero status
                 status = self._proc.wait()
                 if status != 0:
                     raise DecompressError(
                         f"filter {' '.join(self._cmd)} exited with status {status}"
                     )
+            else:
+                # Drain-free close: the consumer stopped early, so kill the
+                # child rather than deadlock on a full pipe.
+                self._proc.kill()
+                self._proc.wait()
         finally:
             super().close()
 

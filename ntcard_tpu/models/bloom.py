@@ -2,11 +2,11 @@
 
 The reference vendors a Bloom filter as ntHash's flagship consumer
 (vendor/ntHash/lib/BloomFilter.hpp:37-294; nttest's FPR sweeps,
-nttest.cpp:443-494). TPU-natively the filter is a byte-per-bit uint8 array:
+nttest.cpp:443-494). On the device the filter is a byte-per-bit uint8 array:
 insert is a scatter-max of 1 (bitwise OR over {0,1} — a word-packed filter
 under scatter-max would keep only the largest bit per word per pass), query
-is a gather + AND across the h derived hash positions. Gathers are banned in
-the ntcard hot path (docs/TPU_BACKEND_NOTES.md) but are the honest primitive
+is a gather + AND across the h derived hash positions. Gathers stay out of
+the ntcard hot path (ops/rotations.py) but are the honest primitive
 for membership queries; this is a capability surface for downstream ntHash
 consumers, not part of the cardinality pipeline.
 

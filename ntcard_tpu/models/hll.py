@@ -4,7 +4,7 @@ Reference: nthll.cpp:92-97 (register update), :218-245 (thread-private
 sketches merged by elementwise max under a critical section), :247-254
 (harmonic-mean estimate, no small/large-range corrections).
 
-TPU-natively the registers are a [2^nBits] int32 array updated by scatter-max
+On the device the registers are a [2^nBits] int32 array updated by scatter-max
 (the fused hash+clz kernel ops/nthash.hll_scan feeds it); max commutes, so
 any batching/sharding is bit-exact, and the multi-shard merge is
 ``jax.lax.pmax`` / elementwise max — the collective lift of the reference's

@@ -1,9 +1,8 @@
 """Host-CPU engine: the full sketch pipeline without touching a device.
 
-Why it exists: on remote/tunneled accelerators the fixed costs (runtime
-handshake, program load, H2D transfer) dominate small jobs — the reference
-CPU binary finishes a 2 Mbp default-config run in a few seconds while the
-device path spends most of its wall on startup. This engine runs the same
+Why it exists: an accelerator's fixed costs (jax import, backend start,
+compile or program load, H2D transfer) dominate small jobs — the device
+path spends most of a small job's wall on startup. This engine runs the same
 hash -> sample -> count semantics as the device kernels, in the native C++
 layer (packer.cpp ntcard_host_update / ntcard_host_hll_update), consuming
 the SAME [batch_rows, chunk_len] packed batches (identical separator / halo

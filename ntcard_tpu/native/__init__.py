@@ -23,8 +23,9 @@ _LIB_TRIED = False
 
 
 def _build_lib() -> Optional[ctypes.CDLL]:
-    # Build into a per-user cache keyed on the source hash: nothing generated
-    # lands in the source tree, a fresh checkout always compiles for the
+    # Build into the package's cache root (accel.cache_root — the
+    # git-ignored .jax_cache beside the package, or JAX_COMPILATION_CACHE_DIR)
+    # keyed on the source hash: a fresh checkout always compiles for the
     # local CPU, and stale binaries can never be loaded. Portable codegen
     # (-mtune=generic, no -march=native): the library may be built on one
     # machine and the cache dir shared with another. -ffp-contract=off keeps
@@ -32,12 +33,9 @@ def _build_lib() -> Optional[ctypes.CDLL]:
     src = _HERE / "packer.cpp"
     source = src.read_bytes()
     digest = hashlib.sha256(source).hexdigest()[:16]
-    cache_dir = Path(
-        os.environ.get(
-            "NTCARD_TPU_NATIVE_CACHE",
-            os.path.join(os.path.expanduser("~"), ".cache", "ntcard_tpu_native"),
-        )
-    )
+    from ntcard_tpu.accel import cache_root
+
+    cache_dir = Path(cache_root()) / "ntcard_native"
     so = cache_dir / f"_packer_{digest}.so"
     if not so.exists():
         try:

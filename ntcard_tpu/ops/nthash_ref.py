@@ -1,6 +1,6 @@
 """Pure-Python scalar reference implementation of ntHash.
 
-This is the *oracle* the vectorized TPU kernels are tested against. It mirrors
+This is the *oracle* the vectorized device kernels are tested against. It mirrors
 the mathematical definition of ntHash (reference: /root/reference/vendor/ntHash/
 nthash.hpp) but is written from the ring-rotation algebra in
 :mod:`ntcard_tpu.constants`, not transliterated.
@@ -19,7 +19,7 @@ Rolling one base (out = leaving base, in = entering base):
 Both recurrences are exactly windowed (each base's contribution is added on
 entry and removed bit-exactly on exit, and N contributes 0), so rolling
 "through" an N region converges back to the from-scratch value as soon as the
-window is N-free — the TPU kernels rely on this.
+window is N-free — the device kernels rely on this.
 """
 
 from __future__ import annotations
@@ -128,7 +128,7 @@ def kmer_hashes(seq: str | bytes, k: int) -> List[Tuple[int, int]]:
 def kmer_hashes_rolling(seq: str | bytes, k: int) -> List[Tuple[int, int]]:
     """Same result as :func:`kmer_hashes`, computed with the rolling
     recurrences rolled blindly through N bases (validity masked afterwards).
-    Exercises the self-correcting property the TPU kernel depends on."""
+    Exercises the self-correcting property the device kernel depends on."""
     codes = seq_to_codes(seq)
     out = []
     if k == 0 or len(codes) < k:

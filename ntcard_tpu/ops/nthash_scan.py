@@ -1,14 +1,13 @@
 """Batched canonical ntHash — sequential ``lax.scan`` formulation.
 
-This was the first TPU implementation; it is retained as an *independent
-cross-check* of the production rotated-prefix-XOR kernel (ops/nthash.py),
-which derives the same values by a completely different decomposition
-(tests/test_kernel_vs_oracle.py::test_scan_backend_matches_wxor). A
-per-position scan is the wrong shape for this TPU (loop-step overhead
-dominates: ~30x slower than the parallel formulation), so nothing in the
-product path uses it.
+This was the first device implementation; it is retained as an
+*independent cross-check* of the production rotated-prefix-XOR kernel
+(ops/nthash.py), which derives the same values by a completely different
+decomposition (tests/test_kernel_vs_oracle.py::test_scan_backend_matches_wxor).
+A per-position scan serializes over L loop steps, so nothing in the product
+path uses it.
 
-Design (TPU-first, not a port of the reference's per-read iterator):
+Design (accelerator-first, not a port of the reference's per-read iterator):
 
 * The host packs *all* input records into one N-separated base-code stream,
   cut into fixed-length chunks of ``L`` bases with a ``kmax-1``-base halo
@@ -19,7 +18,7 @@ Design (TPU-first, not a port of the reference's per-read iterator):
   window of the stream is counted exactly once.
 
 * The kernel is a single ``lax.scan`` over the L positions with the batch
-  spread across VPU lanes as ``[B/128, 128]`` registers. Each step advances
+  spread across the vector lanes as ``[B/128, 128]`` tiles. Each step advances
   the forward and reverse-complement rolling hashes of every k in the k-list.
   The ntHash rolling recurrences are *exactly windowed* (each base's
   contribution is added on entry and removed bit-exactly k steps later, and

@@ -10,9 +10,9 @@ position index.
 Ring mapping for the (hi, lo) pair: lo = u64 bits 0..31, hi = bits 32..63;
 the 33-bit ring is (hi&1, lo), the 31-bit ring is hi>>1.
 
-TPU backend rules baked into these implementations (each violation measured
-at 10-1000x cost on the target): no gathers, no variable-amount shifts, no
-broadcasts of sub-shaped constant arrays, and scalar constants as numpy
+Rules these implementations keep, so the hash chain stays one elementwise
+fusion of constant-amount operations: no gathers, no variable-amount shifts,
+no broadcasts of sub-shaped constant arrays, and scalar constants as numpy
 literals (a committed 0-d device array becomes a buffer parameter, turning
 constant shifts into variable ones).
 """

@@ -9,7 +9,7 @@ The reference is single-node shared-memory; its scale-out analog here is:
   the input so no read is counted twice (assignment below);
 * per-chip private tables as in data_parallel; the finalize-time
   ``jnp.sum``/``jnp.max`` over the device axis runs as a psum/pmax over
-  ICI within a slice and DCN across hosts;
+  the links between devices and between hosts;
 * the merged histogram is independent of host count by commutativity — the
   same bit-exactness argument as the single-host shard-invariance tests.
 
@@ -93,10 +93,7 @@ def _finalize_reduce_scatter(sketch, nbins: int):
     from functools import partial
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-    from ntcard_tpu.models.sketch import (
-        _hist_row_device_small,
-        _hist_row_device_sparse,
-    )
+    from ntcard_tpu.models.sketch import _hist_row
 
     procs = jax.process_count()
     me = jax.process_index()
@@ -116,11 +113,7 @@ def _finalize_reduce_scatter(sketch, nbins: int):
         NamedSharding(mesh, P("proc")),
         [jax.device_put(local, devs[me])],
     )
-    interp = devs[0].platform != "tpu"
-    if nbins <= 32:
-        hist_fn = partial(_hist_row_device_small, nbins=nbins)
-    else:
-        hist_fn = partial(_hist_row_device_sparse, nbins=nbins, interp=interp)
+    hist_fn = partial(_hist_row, nbins=nbins)
 
     def local_fn(gs):  # [1, nK, 2, r_buck] = this process's table
         # each device ends with the bucket-range shard of the summed table
@@ -176,8 +169,6 @@ def merged_finalize(sketch, cov_max: int = 65535):
     from ntcard_tpu.utils.aot import check_trace_verifications
 
     check_trace_verifications()  # fast-key loads must verify before results
-    sketch._flush_replays()  # settle deferred overflow replays first
-    sketch._flush_deferred()  # and pending scatter-deferral buffers
     f1_local = np.asarray(sketch._f1_totals(), np.int64)
     f1_all = multihost_utils.process_allgather(f1_local).sum(axis=0)
     nbins = min(cov_max + 1, 65536)
@@ -206,7 +197,7 @@ def merged_finalize(sketch, cov_max: int = 65535):
         from ntcard_tpu.models.sketch import _counter_hists
 
         # host fallback: stack and allgather the full tables (P x table
-        # bytes through DCN + host memory — debug only)
+        # bytes through the host network + host memory — debug only)
         local = np.stack([np.asarray(t) for t in sketch.tables])
         gathered = multihost_utils.process_allgather(local)
         # sum in int64 then wrap mod 2^16 — all the estimator ever reads

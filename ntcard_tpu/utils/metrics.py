@@ -68,6 +68,13 @@ class Metrics:
             "counters": {k: round(v, 1) for k, v in self.counters.items()},
         }
         out.update(getattr(self, "tags", {}))
+        if "jax" in sys.modules:  # device runs: peak device memory of the run
+            import jax
+
+            peaks = [(d.memory_stats() or {}).get("peak_bytes_in_use") for d in jax.local_devices()]
+            peaks = [p for p in peaks if p is not None]
+            if peaks:
+                out["device_peak_bytes"] = max(peaks)
         bases = self.counters.get("bases", 0)
         reads = self.counters.get("reads", 0)
         if bases and total > 0:

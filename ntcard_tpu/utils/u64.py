@@ -1,19 +1,18 @@
-"""uint64 emulation on TPU as (hi32, lo32) uint32 pairs.
+"""uint64 emulation as (hi32, lo32) uint32 pairs.
 
-TPU vector units have no native uint64; every 64-bit hash value in the device
-kernels is carried as two uint32 arrays. The ntHash split-rotation (a 33-bit
+jax x64 mode stays off (_jax_config.py), so every 64-bit hash value in the
+device kernels is carried as two uint32 arrays. The ntHash split-rotation (a 33-bit
 ring in bits 0..32 and a 31-bit ring in bits 33..63, reference
 /root/reference/vendor/ntHash/nthash.hpp:185-217) maps onto a handful of
 uint32 shifts/xors per step.
 
 All functions are shape-polymorphic elementwise jnp ops (usable inside jit,
-scan, shard_map, and Pallas kernels alike).
+scan and shard_map alike).
 
 IMPORTANT dtype rule: scalar constants must be Python/numpy literals, never
 ``jnp.uint32(...)`` module-level arrays — a committed device array captured
 by a jit is lifted as a buffer parameter instead of an inline literal, which
-turns every shift into a variable-amount shift (catastrophic on the TPU
-vector unit: minutes of compile, ~100x slower code).
+turns every shift into a variable-amount shift.
 """
 
 from __future__ import annotations

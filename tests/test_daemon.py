@@ -16,6 +16,7 @@ import pytest
 from ntcard_tpu import cli
 from ntcard_tpu.daemon import (
     PROTO,
+    TRACE_KNOBS,
     _job_eligible,
     _serve_one,
     maybe_run_via_daemon,
@@ -41,6 +42,9 @@ def daemon(tmp_path_factory):
     env = dict(os.environ)
     env["NTCARD_DAEMON_SOCK"] = sock
     env["NTCARD_DAEMON_IDLE_SEC"] = "120"
+    # the daemon's compiled artefacts (JAX cache, AOT store) go to a
+    # private root that test_daemon_with_aot_forced inspects
+    env["JAX_COMPILATION_CACHE_DIR"] = str(Path(sock).parent / "cache")
     env.pop("NTCARD_DAEMON", None)
     proc = subprocess.Popen(
         [sys.executable, "-m", "ntcard_tpu.daemon"],
@@ -318,8 +322,8 @@ def _daemon_jobs(sock: str) -> int:
 
 def test_noenv_probe_uses_live_daemon(daemon, tmp_path, monkeypatch):
     """The PRODUCT DEFAULT (no NTCARD_DAEMON env at all) must route through
-    an already-serving daemon — the round-5 'TPU win on the default path'
-    contract — verified via the daemon's own job counter."""
+    an already-serving daemon — verified via the daemon's own job
+    counter."""
     fq = tmp_path / "r.fq"
     _write_fastq(fq, seed=21)
     monkeypatch.delenv("NTCARD_DAEMON", raising=False)
@@ -446,12 +450,6 @@ def test_env_knob_robustness(monkeypatch):
     assert _env_float("NTCARD_DAEMON_IDLE_SEC", 900.0, lo=1.0) == 900.0
     monkeypatch.delenv("NTCARD_DAEMON_IDLE_SEC")
     assert _env_float("NTCARD_DAEMON_IDLE_SEC", 900.0, lo=1.0) == 900.0
-    # NTCARD_SCATTER_DEFER='on' must not abort sketch construction
-    from ntcard_tpu.models.sketch import _defer_slots
-
-    monkeypatch.setenv("NTCARD_SCATTER_DEFER", "on")
-    assert _defer_slots(27) in (0, 8)  # default window (0 if sparse off)
-    monkeypatch.delenv("NTCARD_SCATTER_DEFER")
 
 
 def test_read_timeout_does_not_wedge_server(monkeypatch):
@@ -487,8 +485,8 @@ def test_read_timeout_does_not_wedge_server(monkeypatch):
 def test_daemon_with_aot_forced(daemon, tmp_path, monkeypatch):
     """The combined production stack — daemon routing + the AOT executable
     cache (forced on CPU) — must stay byte-identical to a plain direct run.
-    NTCARD_AOT/NTCARD_AOT_CACHE ride the request env, so the DAEMON process
-    serves the job through aot_jit entries."""
+    NTCARD_AOT rides the request env, so the DAEMON process serves the job
+    through aot_jit entries, stored under its own cache root."""
     fq = tmp_path / "r.fq"
     _write_fastq(fq, seed=31)
     # --devices 1: the 8-virtual-device test mesh routes to the sharded
@@ -501,11 +499,11 @@ def test_daemon_with_aot_forced(daemon, tmp_path, monkeypatch):
     monkeypatch.setenv("NTCARD_DAEMON_SOCK", daemon)
     monkeypatch.setenv("NTCARD_DAEMON_CONNECT_SEC", "5")
     monkeypatch.setenv("NTCARD_AOT", "1")
-    monkeypatch.setenv("NTCARD_AOT_CACHE", str(tmp_path / "aot"))
     for tag in ("a1", "a2"):  # second pass: daemon-side AOT entries warm
         assert cli.main(argv + ["-p", str(tmp_path / tag), str(fq)]) == 0
         assert (tmp_path / f"{tag}_k20.hist").read_bytes() == golden
-    assert (tmp_path / "aot").exists()  # the daemon actually wrote entries
+    aot_dir = Path(daemon).parent / "cache" / "ntcard_aot"
+    assert aot_dir.exists()  # the daemon actually wrote entries
 
 
 def test_idle_expiry_and_threaded_stop(tmp_path, monkeypatch):
@@ -541,14 +539,132 @@ def test_idle_expiry_and_threaded_stop(tmp_path, monkeypatch):
 def test_trace_time_knobs_not_routed(tmp_path, monkeypatch):
     """Jobs forcing trace-time kernel knobs run in-process: inside a
     long-lived daemon they could execute programs traced under different
-    knob values (jit cache keys carry shapes only), and in the overflow
-    corner that can drop counts."""
+    knob values (jit cache keys carry shapes only)."""
     fq = tmp_path / "r.fq"
     _write_fastq(fq, n_reads=5)
     ok = ["-k12", "-p", "x", str(fq)]
     assert _job_eligible("ntcard", ok)
-    for knob in ("NTCARD_SCATTER", "NTCARD_KERNEL", "NTCARD_COMPACT",
-                 "NTCARD_COMPACT_WAYS", "NTCARD_FINALIZE"):
+    for knob in TRACE_KNOBS:
         monkeypatch.setenv(knob, "anything")
         assert not _job_eligible("ntcard", ok), knob
         monkeypatch.delenv(knob)
+
+
+def _fake_daemon(sock: str, greeting: bytes | None, requests: list):
+    """A unix-socket server that greets with ``greeting`` (or never, when
+    None) and answers every request line with exit 0; records requests."""
+    import threading
+
+    srv = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+    srv.bind(sock)
+    srv.listen(4)
+
+    def loop():
+        while True:
+            try:
+                conn, _ = srv.accept()
+            except OSError:
+                return
+            if greeting is None:
+                continue  # accepted, never greeted: a daemon still booting
+            try:
+                conn.sendall(greeting)
+                conn.settimeout(5)
+                line = conn.makefile("rb").readline()
+                if line:
+                    requests.append(line)
+                    conn.sendall(b'{"exit": 0, "out": "", "err": ""}\n')
+            except OSError:
+                pass
+            conn.close()
+
+    threading.Thread(target=loop, daemon=True).start()
+    return srv
+
+
+@pytest.fixture
+def gpu_host(monkeypatch, tmp_path):
+    """Client side of a GPU host: the daemon owns the card while it lives."""
+    from ntcard_tpu import daemon as dmod
+
+    monkeypatch.setattr(dmod, "accelerator_requested", lambda: True)
+    monkeypatch.delenv("NTCARD_DAEMON_BUSY", raising=False)
+    monkeypatch.delenv("NTCARD_DAEMON", raising=False)  # the product default
+    sock = str(tmp_path / "g.sock")
+    monkeypatch.setenv("NTCARD_DAEMON_SOCK", sock)
+    fq = tmp_path / "r.fq"
+    _write_fastq(fq, n_reads=5)
+    return sock, ["-k12", "-p", str(tmp_path / "x"), str(fq)]
+
+
+def test_gpu_host_busy_daemon_queues(gpu_host, monkeypatch):
+    """On a GPU host a busy daemon is queued behind, never bypassed: an
+    in-process run would open the card a second time."""
+    sock, argv = gpu_host
+    got = []
+    srv = _fake_daemon(sock, b'{"ready": 1, "busy": 1}\n', got)
+    try:
+        assert maybe_run_via_daemon("ntcard", argv) == 0
+        assert len(got) == 1
+    finally:
+        srv.close()
+
+
+def test_gpu_host_silent_daemon_refuses(gpu_host, monkeypatch, capsys):
+    """A live daemon that never greets (still booting) makes the client
+    wait up to NTCARD_DAEMON_READY_SEC and then fail — not run in-process."""
+    sock, argv = gpu_host
+    with open(sock + ".lock", "w") as fh:
+        fh.write(str(os.getpid()))  # a live owner
+    srv = _fake_daemon(sock, None, [])
+    try:
+        monkeypatch.setenv("NTCARD_DAEMON_READY_SEC", "0.3")
+        assert maybe_run_via_daemon("ntcard", argv) == 1
+        assert "holds the GPU" in capsys.readouterr().err
+    finally:
+        srv.close()
+
+
+def test_gpu_host_unroutable_job_refused(gpu_host, tmp_path, capsys):
+    """A job that cannot move into the daemon (a FIFO input) is refused
+    while a daemon serves; jax-free jobs (usage errors) still run
+    in-process."""
+    sock, argv = gpu_host
+    srv = _fake_daemon(sock, b'{"ready": 1, "busy": 0}\n', [])
+    try:
+        fifo = tmp_path / "pipe.fq"
+        os.mkfifo(fifo)
+        assert maybe_run_via_daemon("ntcard", ["-k12", "-p", "x", str(fifo)]) == 1
+        assert "holds the GPU" in capsys.readouterr().err
+        assert maybe_run_via_daemon("ntcard", ["--help"]) is None
+    finally:
+        srv.close()
+
+
+def test_gpu_host_spawn_routes_first_job(gpu_host, monkeypatch):
+    """Spawn-on-first-use on a GPU host: the first job waits for the new
+    daemon and goes through it instead of running in-process beside it."""
+    sock, argv = gpu_host
+    got = []
+    servers = []
+
+    def spawn(path):
+        with open(path + ".lock", "w") as fh:
+            fh.write(str(os.getpid()))
+        servers.append(_fake_daemon(path, b'{"ready": 1, "busy": 0}\n', got))
+
+    monkeypatch.setattr("ntcard_tpu.daemon._spawn_daemon", spawn)
+    monkeypatch.setenv("NTCARD_DAEMON", "1")
+    try:
+        assert maybe_run_via_daemon("ntcard", argv) == 0
+        assert len(servers) == 1 and len(got) == 1
+    finally:
+        for srv in servers:
+            srv.close()
+
+
+def test_gpu_host_no_daemon_runs_in_process(gpu_host, monkeypatch):
+    """With no daemon at all (probe-only default), nothing holds the card:
+    the job runs in-process."""
+    _sock, argv = gpu_host
+    assert maybe_run_via_daemon("ntcard", argv) is None

@@ -247,7 +247,7 @@ def test_default_r27_host_route_knob(tmp_path, monkeypatch):
 
     if not host_engine_available():
         pytest.skip("no native toolchain")
-    monkeypatch.setenv("JAX_PLATFORMS", "tpu")
+    monkeypatch.setenv("JAX_PLATFORMS", "cuda")
     monkeypatch.setenv("NTCARD_HOST_MIN_RBITS", "20")
     monkeypatch.delenv("NTCARD_ENGINE", raising=False)
     run(tmp_path, ["-k12", "-c1000", "-p", tmp_path / "h", DATA / "reads.fq"])
@@ -310,3 +310,18 @@ def test_fast_device_path_nibble_fallback(tmp_path, monkeypatch):
     assert (tmp_path / "fast_k12.hist").read_bytes() == (
         tmp_path / "legacy_k12.hist"
     ).read_bytes()
+
+
+def test_nthll_metrics_env_emits_json(capsys, monkeypatch):
+    """NTCARD_METRICS=1 gives nthll's device path the structured metrics
+    line ntcard's --metrics prints (phase split), beside the golden F0."""
+    import json
+
+    from ntcard_tpu import cli_hll
+
+    monkeypatch.setenv("NTCARD_METRICS", "1")
+    assert cli_hll.main(["-k25", str(DATA / "reads.fq")]) == 0
+    cap = capsys.readouterr()
+    assert cap.out == (GOLD / "nthll_k25.out.good").read_text()
+    line = next(l for l in cap.err.splitlines() if l.startswith("{"))
+    assert {"pipeline", "finalize"} <= set(json.loads(line)["phases_sec"])

@@ -25,7 +25,7 @@ def _opt(ks=(64,), r_bits=27, devices=0, coordinator="", num_hosts=0):
 
 @pytest.fixture
 def accel(monkeypatch):
-    monkeypatch.setenv("JAX_PLATFORMS", "tpu")
+    monkeypatch.setenv("JAX_PLATFORMS", "cuda")
     monkeypatch.delenv("NTCARD_ENGINE", raising=False)
     monkeypatch.delenv("NTCARD_COORDINATOR", raising=False)
 
@@ -54,16 +54,14 @@ def test_bench_configs_route_host(accel):
 def test_in_daemon_warm_floor(accel, monkeypatch):
     """Inside the warm-pool daemon (NTCARD_IN_DAEMON=1, daemon._run_job)
     the device path's fixed cost is ~IPC + first dispatch, so auto charges
-    the measured warm floor (0.25 s): the bench r27 default config routes
-    to the CHIP — the round-5 'TPU on the default path' contract — while
-    tiny jobs still take the host engine (genuinely faster there)."""
+    the warm floor (cli.DEVICE_WARM_FLOOR_SEC): streams longer than it go
+    to the card, while tiny jobs still take the host engine."""
     monkeypatch.setenv("NTCARD_IN_DAEMON", "1")
-    # 187 MB r27 3-k: host estimate ~0.7 s >= 0.25 s warm floor -> device
+    # 187 MB r27 3-k: host estimate ~10 s >= the warm floor -> device
     assert not _use_host_engine(_opt(ks=(64, 96, 128), r_bits=27), 187 << 20)
-    # single-k at the same size: the AVX-512 host engine finishes in
-    # ~0.1 s — genuinely the best engine even against a warm chip
-    assert _use_host_engine(_opt(ks=(64,), r_bits=16), 187 << 20)
-    # a 2 MB input: host estimate ~7 ms < warm floor -> host engine
+    # single-k at the same size: host estimate ~3.4 s, still above it
+    assert not _use_host_engine(_opt(ks=(64,), r_bits=16), 187 << 20)
+    # a 2 MB input: host estimate ~36 ms < warm floor -> host engine
     assert _use_host_engine(_opt(ks=(64,), r_bits=16), 2 << 20)
     # an explicit floor override still wins
     monkeypatch.setenv("NTCARD_DEVICE_FLOOR_SEC", "99")
@@ -71,7 +69,7 @@ def test_in_daemon_warm_floor(accel, monkeypatch):
 
 
 def test_long_streams_route_device(accel):
-    # 10 GB at nk=1: est 12.5 s >> 4 s floor
+    # 10 GB at nk=1: est ~185 s >> the cold floor
     assert not _use_host_engine(_opt(ks=(64,)), 10 << 30)
     # more k lowers the host rate => the crossover shrinks proportionally
     assert not _use_host_engine(_opt(ks=(64, 96, 128)), 4 << 30)

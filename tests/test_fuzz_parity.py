@@ -87,8 +87,8 @@ def test_mixed_format_klarge_at_list(ref_exe, tmp_path):
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     subprocess.run(
         [sys.executable, "-m", "ntcard_tpu.cli"] + flags
-        + ["-p", str(tmp_path / "tpu"), f"@{lst}"],
+        + ["-p", str(tmp_path / "ours"), f"@{lst}"],
         check=True, capture_output=True, timeout=600, env=env,
         cwd=Path(__file__).resolve().parents[1],
     )
-    assert (tmp_path / "ref_k144.hist").read_bytes() == (tmp_path / "tpu_k144.hist").read_bytes()
+    assert (tmp_path / "ref_k144.hist").read_bytes() == (tmp_path / "ours_k144.hist").read_bytes()

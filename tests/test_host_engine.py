@@ -123,7 +123,7 @@ def test_auto_stays_on_device_for_cpu_platform(monkeypatch):
 
 def test_auto_picks_host_for_small_inputs_on_accelerator(monkeypatch):
     monkeypatch.setenv("NTCARD_ENGINE", "auto")
-    monkeypatch.setenv("JAX_PLATFORMS", "tpu")
+    monkeypatch.setenv("JAX_PLATFORMS", "cuda")
     opt, _ = cli.parse_args(["-k12", "-r16", "-p", "x", "f.fq"])
     assert cli._use_host_engine(opt, 1000)
     # large input at small r -> device

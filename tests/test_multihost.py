@@ -29,7 +29,7 @@ def test_assignment_partition():
 def test_two_process_distributed_run(tmp_path):
     """Launch the REAL CLI as two jax.distributed processes (coordinator on
     localhost, CPU backend): each host decodes its own file slice, the
-    tables merge over the Gloo 'DCN' at finalize, and process 0's output
+    tables merge over Gloo between the processes at finalize, and process 0's output
     must byte-match the single-process combined golden
     (tests/golden/both_k12.hist.good)."""
     with socket.socket() as s:
@@ -61,7 +61,7 @@ def test_two_process_distributed_run(tmp_path):
 
 def test_two_process_nthll(tmp_path):
     """nthll across two jax.distributed processes (env-driven launch):
-    per-host file slices, registers max-merged over DCN, process 0 prints —
+    per-host file slices, registers max-merged across processes, process 0 prints —
     must equal the single-process run over both files."""
     import os
 
@@ -113,7 +113,7 @@ def test_two_process_default_r27_smoke(tmp_path):
     in test-env memory — the round-2 host path allgathered P x full tables
     into every process — and byte-match a single-process run over the same
     inputs (merge-invariance at real table scale). k=64 keeps the footprint
-    ~1 GB/process; cov 64 keeps the interpret-mode sparse hist cheap."""
+    ~1 GB/process; cov 64 keeps the finalize histogram small."""
     import os
     import subprocess
     import sys

@@ -140,33 +140,6 @@ def test_quad2_ok_geometry():
     assert not quad2_ok(8192, 959)  # (B/128 * S) % 128 != 0
 
 
-def test_pallas_backend_accepts_quad2(monkeypatch):
-    """NTCARD_KERNEL=pallas + quad2 wire: the pallas batch step unpacks the
-    quad2 wire on device and must match the raw path bit-for-bit."""
-    import jax
-
-    monkeypatch.setenv("NTCARD_KERNEL", "pallas")
-    jax.clear_caches()
-    try:
-        chunk_len, rows = 272, 256
-        p = StreamPacker(chunk_len, rows, 12)
-        stride = p.stride
-        a = CountTableSketch((12,), 7, 10, stride)
-        b = CountTableSketch((12,), 7, 10, stride)
-        for x in pack_records(_reads(1500, 150, 400, seed=8), chunk_len, rows, 12, packer=p):
-            a.update(x)
-            w = pack_rows_quad2(x, stride)
-            assert w is not None
-            b.update(jnp.asarray(w), packed=f"quad2:{chunk_len - stride}")
-        np.testing.assert_array_equal(
-            np.asarray(a.tables)[:, :-1], np.asarray(b.tables)[:, :-1]
-        )
-        assert a._f1_totals() == b._f1_totals()
-    finally:
-        monkeypatch.delenv("NTCARD_KERNEL", raising=False)
-        jax.clear_caches()
-
-
 def test_quad2_rejects_nonconsecutive_rows():
     """pack_rows_quad2's decode contract only holds when rows are
     consecutive spans of one stream (batch[b, S:] == batch[b+1, :halo]);

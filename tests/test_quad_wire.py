@@ -130,26 +130,3 @@ def test_sketch_quad_matches_raw_gap_seed():
         b.update(jnp.asarray(w), packed="quad")
     np.testing.assert_array_equal(np.asarray(a.tables), np.asarray(b.tables))
     assert a._f1_totals() == b._f1_totals()
-
-
-def test_pallas_backend_accepts_quad(monkeypatch):
-    """NTCARD_KERNEL=pallas + quad wire: the pallas batch step unpacks the
-    quad wire on device and must match the raw path bit-for-bit."""
-    import jax
-
-    monkeypatch.setenv("NTCARD_KERNEL", "pallas")
-    jax.clear_caches()
-    try:
-        a = CountTableSketch((12,), 7, 10, 120)
-        b = CountTableSketch((12,), 7, 10, 120)
-        x = _codes(128, 128, 0.005)
-        a.update(x)
-        w = pack_rows_quad(x)
-        b.update(jnp.asarray(w), packed="quad")
-        np.testing.assert_array_equal(
-            np.asarray(a.tables)[:, :-1], np.asarray(b.tables)[:, :-1]
-        )
-        assert a._f1_totals() == b._f1_totals()
-    finally:
-        monkeypatch.delenv("NTCARD_KERNEL", raising=False)
-        jax.clear_caches()

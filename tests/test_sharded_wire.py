@@ -95,9 +95,8 @@ def test_pack_shard_wires_homogenizes_on_overflow():
 
 
 def test_chains_engine_bitexact(records, monkeypatch):
-    """The per-device-chains multi-device engine (NTCARD_SHARDED=chains;
-    the accelerator default — shard_map's manual lowering costs ~450
-    ms/batch on the measured TPU runtime) must be bit-identical to both the
+    """The per-device-chains multi-device engine (NTCARD_SHARDED=chains,
+    the default on GPUs) must be bit-identical to both the
     single-device run and the shard_map engine, through per-shard quad2
     wires and superbatch stacks."""
     from ntcard_tpu.parallel.data_parallel import PerDeviceCountTableSketch

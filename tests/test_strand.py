@@ -1,5 +1,5 @@
 """Strand-aware canonical hashing (NTMC64-with-hStn parity,
-nthash.hpp:495-534): both TPU kernel backends' hStn output must equal the
+nthash.hpp:495-534): both hash-kernel backends' hStn output must equal the
 scalar oracle's `rhVal < fhVal` on every valid window, and the hash must
 stay the plain canonical value."""
 

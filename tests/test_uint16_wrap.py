@@ -50,9 +50,10 @@ def test_wraparound_matches_mod_65536():
 
 
 def test_small_bin_hist_matches_scatter():
-    """The scatter-free compare-reduce finalize histogram (used on device
-    for small cov_max) must equal the full 65536-bin scatter on the bins it
-    reports, including mod-2^16 wrap of large counts."""
+    """The device finalize histogram (models/sketch._hist_row: zeros by a
+    reduction, 1 <= v < nbins scattered) must equal the full 65536-bin
+    histogram on the bins it reports, including mod-2^16 wrap of large
+    counts."""
     import numpy as np
 
     from ntcard_tpu.models.sketch import _counter_hists_device
@@ -62,20 +63,20 @@ def test_small_bin_hist_matches_scatter():
     # values spanning wrap boundaries and both samples; sentinel col appended
     t = rng.integers(0, 1 << 18, size=(2, 2 * r_buck + 1), dtype=np.int32)
     full = np.asarray(_counter_hists_device(t, r_buck, 65536))
-    for nbins in (1, 66, 1001, 1025):  # 1025 exercises the scatter fallback
+    for nbins in (1, 66, 1001, 1025):
         small = np.asarray(_counter_hists_device(t, r_buck, nbins))
         np.testing.assert_array_equal(small, full[:, :, :nbins])
 
 
 def test_dense_row_hist_fallback():
-    """A (deep-coverage) row whose in-range nonzero count exceeds the
-    sparse-hist compaction cap must come back exact via the host-dispatched
-    scatter fallback (models/sketch._counter_hists_device)."""
+    """A (deep-coverage) row in which every bucket is nonzero and in range —
+    2^18 of them, the size that once overflowed a compaction buffer — must
+    come back exact from the one-pass device histogram."""
     import numpy as np
 
-    from ntcard_tpu.models.sketch import _HIST_CAP, _counter_hists_device
+    from ntcard_tpu.models.sketch import _counter_hists_device
 
-    r_buck = _HIST_CAP  # every bucket nonzero in-range -> cnt == 2*cap > cap
+    r_buck = 1 << 18
     rng = np.random.default_rng(9)
     t = rng.integers(1, 64, size=(1, 2 * r_buck + 1), dtype=np.int32)
     got = np.asarray(_counter_hists_device(t, r_buck, 66))

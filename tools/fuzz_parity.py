@@ -1,4 +1,4 @@
-"""Randomized end-to-end parity fuzzer: ntcard-tpu vs the reference binary.
+"""Randomized end-to-end parity fuzzer: this ntcard vs the reference binary.
 
 Generates random inputs (formats, record lengths incl. < k, N runs,
 lowercase, RNA U, CRLF, wrapped FASTA, gzip) and random flag sets, runs
@@ -236,37 +236,29 @@ def run_case(seed: int, ref_exe: Path, workdir: Path, keep: bool = False) -> str
         env["NTCARD_SUPERBATCH"] = "3"  # scanned stack dispatch
     if seed % 11 < 5:
         env["NTCARD_SHARDED"] = "chains"  # per-device engine (no-op at ndev=1)
-    if seed % 13 < 3 and env.get("NTCARD_ENGINE") not in ("host", "hybrid"):
-        # sparse big-table path via the Pallas interpreter with scatter
-        # deferral at a rotating window (engages at the -r18 cases; a
-        # harmless no-op below r17)
-        env["NTCARD_SCATTER"] = "pallas-interpret"
-        env["NTCARD_SCATTER_DEFER"] = str(2 + seed % 3)
     if seed % 4 == 1 and env.get("NTCARD_ENGINE") != "host":
         # daemon rotation arm (VERDICT r4 #7): route through the live
         # warm-pool daemon so its byte parity rests on the same fuzz
-        # surface as every other engine. Trace-time kernel knobs make a
-        # job ineligible (daemon refuses them) — strip them so the case
-        # actually routes; the daemon's own mesh is the 8-device CPU one,
-        # so 1-device cases double as shard-invariance checks.
+        # surface as every other engine. The daemon's own mesh is the
+        # 8-device CPU one, so 1-device cases double as shard-invariance
+        # checks.
         sock = _daemon_sock(workdir)
         if sock:
-            env.pop("NTCARD_SCATTER", None)
             env["NTCARD_DAEMON"] = "1"
             env["NTCARD_DAEMON_SOCK"] = sock
             env["NTCARD_DAEMON_CONNECT_SEC"] = "5"
     r2 = subprocess.run(
-        [sys.executable, "-m", "ntcard_tpu.cli"] + flags + outargs("tpu") + file_args,
+        [sys.executable, "-m", "ntcard_tpu.cli"] + flags + outargs("ours") + file_args,
         capture_output=True, text=True, timeout=600, env=env,
         cwd=Path(__file__).resolve().parents[1],
     )
     if r1.returncode != r2.returncode:
-        return f"exit codes differ: ref={r1.returncode} tpu={r2.returncode} ({flags} {inp.name})"
+        return f"exit codes differ: ref={r1.returncode} ours={r2.returncode} ({flags} {inp.name})"
     if r1.returncode != 0:
         return None  # both rejected the case the same way
     if compact:
         a = (case / "ref.tsv").read_bytes()
-        b = (case / "tpu.tsv").read_bytes()
+        b = (case / "ours.tsv").read_bytes()
         if a != b:
             return f"compact TSV differs ({flags} {inp.name})"
         # per-k F1/F0 stderr lines (reference prints them in compact mode)
@@ -277,7 +269,7 @@ def run_case(seed: int, ref_exe: Path, workdir: Path, keep: bool = False) -> str
     else:
         for k in ks:
             a = (case / f"ref_k{k}.hist").read_bytes()
-            b = (case / f"tpu_k{k}.hist").read_bytes()
+            b = (case / f"ours_k{k}.hist").read_bytes()
             if a != b:
                 return f"k={k} hist differs ({flags} {inp.name})"
     if not keep:
@@ -325,7 +317,7 @@ def run_case_nthll(seed: int, ref_exe: Path, workdir: Path) -> str | None:
     if (r1.returncode, r1.stdout) != (r2.returncode, r2.stdout):
         return (
             f"nthll differs ({flags} {inp.name}): "
-            f"ref rc={r1.returncode} {r1.stdout!r} vs tpu rc={r2.returncode} {r2.stdout!r}"
+            f"ref rc={r1.returncode} {r1.stdout!r} vs ours rc={r2.returncode} {r2.stdout!r}"
         )
     shutil.rmtree(case, ignore_errors=True)
     return None

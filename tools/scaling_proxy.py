@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Measured 2-host weak-scaling efficiency on the CPU 'fake cluster'
-(SURVEY.md §4: jax.distributed over localhost Gloo is the DCN analog —
-no multi-chip/multi-host TPU hardware exists in this container).
+(SURVEY.md §4: jax.distributed over localhost Gloo stands in for the
+network between hosts; multi-host GPU runs are ROADMAP 2.1.5).
 
 Protocol (weak scaling: constant work PER HOST, resources pinned so the
 two-host run does not simply contend for the same cores):
@@ -23,8 +23,8 @@ merge, so the added communication cost is measured, not modeled.
 
 This measures everything the reference's OpenMP scaling claim measures
 (per-worker stream + merge) plus a real network merge the reference does
-not have. It does NOT measure TPU ICI (no hardware); bench.py's
-scaling_efficiency_proxy covers the on-chip merge cost instead.
+not have. It does NOT measure the links between cards; chip_smoke.py
+--four measures the device-to-device merge copy on four cards.
 
 Usage: python tools/scaling_proxy.py [--reads 150000] [--passes 2]
 Prints one JSON line.
